@@ -1,10 +1,10 @@
-"""libiqo_tpu: a TPU-native image resampling framework.
+"""libiqo_tpu: an image resampling framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of yoffy/libiqo
-(reference at /root/reference): Lanczos, Area and Linear resampling of
-single-channel U8 images with bit-exact parity against the reference's
-Generic fixed-point implementations, plus TPU-first extensions (batching,
-fused YUV420 pipelines, device-mesh sharding).
+A from-scratch JAX/XLA rebuild of the capabilities of yoffy/libiqo:
+Lanczos, Area and Linear resampling of single-channel U8 images with
+bit-exact parity against the reference's Generic fixed-point
+implementations, plus batching, fused YUV420 pipelines and device-mesh
+sharding.  It runs on an NVIDIA GPU, and on the CPU for tests.
 
 Quick start::
 
@@ -19,7 +19,7 @@ Quick start::
 from .api import AreaResizer, LanczosResizer, LinearResizer, Resizer
 from .core.plan import ResizePlan, build_plan
 
-__version__ = "0.1.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "AreaResizer",

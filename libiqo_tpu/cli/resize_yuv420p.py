@@ -31,17 +31,14 @@ def main(argv=None) -> int:
     ap.add_argument("-ow", type=int, required=True, help="output width")
     ap.add_argument("-oh", type=int, required=True, help="output height")
     ap.add_argument("--backend", default="auto",
-                    choices=["auto", "xla", "pallas", "numpy"])
-    ap.add_argument("--precision", default="exact",
-                    choices=["exact", "relaxed"],
-                    help="relaxed = opt-in ~2 LSB fast kernel")
+                    choices=["auto", "xla", "numpy"])
     ap.add_argument("--frames", type=int, default=None,
                     help="max frames to process (default: all)")
     args = ap.parse_args(argv)
 
     try:
         r = YUV420Resizer(args.m, args.iw, args.ih, args.ow, args.oh,
-                          backend=args.backend, precision=args.precision)
+                          backend=args.backend)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -11,7 +11,7 @@ computes at resizer-construction time:
 * integer index iterators (ref: src/math.hpp:70-155 `LinearIterator`)
 
 Everything here is pure NumPy / Python integers: it runs once per geometry at
-plan-build time (the TPU analog of the reference's construct-once contract,
+plan-build time (the analog of the reference's construct-once contract,
 ref: include/libiqo/LanczosResizer.hpp:17-25).
 
 Numerical notes

@@ -1,10 +1,10 @@
 """Resize plans: geometry -> exact integer tap tables, built once per shape.
 
-A :class:`ResizePlan` is the TPU analog of the reference's construct-once
+A :class:`ResizePlan` is the analog of the reference's construct-once
 resizer state (ref: include/libiqo/LanczosResizer.hpp:17-25): all
 geometry-dependent work — gcd reduction, tap counts, quantized phase tables,
 border ranges and denominators — happens here on the host, once.  The device
-paths (XLA dense matmul, Pallas fused kernel) are pure compiled compute over
+path (``ops/xla_resize.py``) is pure compiled compute over
 these tables.
 
 Per-axis contract (one :class:`AxisPlan` each for H and W):

@@ -2,9 +2,9 @@
 
 This is the executable specification of the fixed-point output contract
 (ref: src/IQO{Lanczos,Area,Linear}ResizerImpl_Generic.cpp, SURVEY.md §3.3).
-The XLA and Pallas device paths are tested byte-equal against it, and it is
-itself cross-checked against a ctypes build of the reference's Generic
-implementations (tests/test_cref.py).
+The XLA device path is tested byte-equal against it, and it is itself
+cross-checked against a ctypes build of the reference's Generic
+implementations (tests/test_golden_vs_cref.py).
 
 Pipeline per output row (vectorized here over all rows):
 
@@ -45,11 +45,32 @@ def wrap_i32(x: np.ndarray) -> np.ndarray:
     return ((x + 2**31) & (2**32 - 1)) - 2**31
 
 
+def _abs_sum_bound(a: np.ndarray, b: np.ndarray) -> int:
+    """An upper bound on sum_k |a_ik| * |b_kj| over every (i, j)."""
+    abs_a, abs_b = np.abs(a), np.abs(b)
+    return min(int(abs_a.sum(axis=1).max(initial=0)) * int(abs_b.max(initial=0)),
+               int(abs_a.max(initial=0)) * int(abs_b.sum(axis=0).max(initial=0)))
+
+
+def _int_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Exact int64 ``a @ b``.
+
+    NumPy's int64 matmul is an unblocked loop (about a minute for one 4K
+    plane), so the product goes through float64 BLAS whenever
+    ``_abs_sum_bound`` is below 2**53: every product and partial sum is
+    then an integer that float64 holds exactly, in any summation order.
+    Otherwise the int64 loop runs.
+    """
+    if _abs_sum_bound(a, b) < 2**53:
+        return (a.astype(np.float64) @ b.astype(np.float64)).astype(np.int64)
+    return a @ b
+
+
 def _y_pass(plan: ResizePlan, src_i: np.ndarray) -> np.ndarray:
     """(src_h, W) int64 -> (dst_h, W) int64 work rows, Y-bias scaled."""
     y = plan.y
     cy = y.dense(np.int64)                       # (dst_h, src_h)
-    nume = cy @ src_i                            # exact integer
+    nume = _int_matmul(cy, src_i)                # exact integer
     if plan.wrap16:
         nume = wrap_i16(nume)
         if y.is_border.any():
@@ -63,7 +84,7 @@ def _x_pass(plan: ResizePlan, work: np.ndarray) -> np.ndarray:
     """(dst_h, src_w) int64 work -> (dst_h, dst_w) u8 output."""
     x = plan.x
     cx = x.dense(np.int64)                       # (dst_w, src_w)
-    sums = work @ cx.T                           # (dst_h, dst_w)
+    sums = _int_matmul(work, cx.T)               # (dst_h, dst_w)
     if plan.wrap16:
         # lanczos: C int32 accumulator semantics, incl. the +half add
         sums = wrap_i32(sums)

@@ -4,7 +4,7 @@
 // time (ref: src/IQOLanczosResizerImpl_Generic.cpp:291-339); its benchmark
 // protocol rebuilds the resizer every cycle (ref: benchmark/benchmark.cpp:
 // 1019-1031), making table construction a hot path.  This module is the
-// TPU framework's equivalent native layer: it builds all phase tables for
+// framework's equivalent native layer: it builds all phase tables for
 // one axis in a single C call, bit-identical to the pure-NumPy engine in
 // coeffs/engine.py (strict IEEE float/double arithmetic; compile WITHOUT
 // fast-math).

@@ -1,29 +1,32 @@
-"""XLA resize path: the exact fixed-point contract as MXU-friendly matmuls.
+"""XLA resize path: the exact fixed-point contract as matmuls.
 
-TPU-first formulation (SURVEY §7): a separable resize is two banded matmuls,
+A separable resize is two banded matmuls,
 
     dst = epilogue( Cy @ src @ CxT )
 
 with every integer quantization of the reference's Generic path reproduced
-exactly (ref: src/IQO{Lanczos,Area,Linear}ResizerImpl_Generic.cpp).
+exactly (ref: src/IQO{Lanczos,Area,Linear}ResizerImpl_Generic.cpp).  This is
+the one device path, on the GPU and on the CPU.
 
-Exact integer matmuls on the MXU
---------------------------------
-The TPU MXU multiplies in bf16 (8-bit mantissa) and accumulates in f32, so
-plain f32 dots are NOT exact at default precision.  We make every dot
+Exact integer matmuls
+---------------------
+A float32 dot without an explicit precision may run in TF32 on the GPU
+(10-bit mantissa), which silently breaks byte parity.  We make every dot
 provably exact by keeping all products and partial sums below 2**24 (f32's
-exact-integer range) using one of three modes, chosen per axis at plan time:
+exact-integer range) using one of these modes, chosen per axis at plan time:
 
-* ``bf16`` (fast path, num_coefs <= 258): split the 16-bit coefficient
+* ``bf16`` (GPU only, num_coefs <= 258): split the 16-bit coefficient
   matrix into two 8-bit byte planes, hi = c >> 8, lo = c & 255.  Every
   operand is <= 8 bits -> every bf16 product is exact, and per-row sums are
-  <= num_coefs * 255 * 255 < 2**24.  Single-pass bf16 matmuls: this is the
-  MXU's native speed.
+  <= num_coefs * 255 * 255 < 2**24 in the f32 accumulator.  These dots run
+  on the tensor cores.
 * ``f32`` (any num_coefs, per-row sum|coef| <= 65535): f32 dots at
-  ``Precision.HIGHEST`` (6-pass bf16 decomposition, exact for <= 24-bit
-  integer operands); sums <= 255 * 65535 < 2**24.
+  ``Precision.HIGHEST`` (true f32, exact for <= 24-bit integer operands);
+  sums <= 255 * 65535 < 2**24.
 * ``int`` (pathological px_scale phases whose |coef| row sums exceed
-  65535): integer dot, exact by construction, speed irrelevant.
+  65535): s32 x s32 -> s32 dot, exact by construction, speed irrelevant.
+* ``banded`` (dense matrix above ``_DENSE_LIMIT`` elements): a ``lax.scan``
+  over the taps with an int32 accumulator, O(num_coefs) work per output.
 
 The X pass additionally splits the int16 work rows into hi/lo bytes
 (work = hi*256 + lo, lo in [0,256)); recombination arithmetic runs in int32
@@ -57,12 +60,10 @@ def _axis_mode(ax: AxisPlan, allow_banded: bool = True) -> str:
         return "banded"
     if int(np.abs(ax.coef.astype(np.int64)).sum(axis=1).max()) > _F32_EXACT_COEF_SUM:
         return "int"
-    # bf16 byte planes only where bf16 is native silicon: XLA:CPU's
-    # emulated bf16 matmul writes past odd-width buffers (heap corruption,
-    # reproduced on jax 0.9 — see tests/test_pallas_internals.py's LRU test
-    # which first exposed it); CPU f32 dots are true f32 and exact for all
-    # our bounds anyway.
-    if ax.num_coefs <= _BF16_MAX_COEFS and jax.default_backend() == "tpu":
+    # bf16 byte planes only on the GPU's tensor cores: XLA:CPU's emulated
+    # bf16 matmul writes past odd-width buffers (heap corruption, seen on
+    # jax 0.9); CPU f32 dots are true f32 and exact for all our bounds.
+    if ax.num_coefs <= _BF16_MAX_COEFS and jax.default_backend() == "gpu":
         return "bf16"
     return "f32"
 
@@ -147,12 +148,14 @@ def _matmul_coef_left(c_pack: tuple, mode: str, s_u8: jax.Array) -> jax.Array:
         coef, idx = c_pack
         s = s_u8.astype(jnp.int32)
 
-        def step(acc, tap):
-            c_t, i_t = tap
-            return acc + c_t[:, None] * jnp.take(s, i_t, axis=0), None
+        def tap(c_t, i_t):
+            return c_t[:, None] * jnp.take(s, i_t, axis=0)
 
-        init = jnp.zeros((coef.shape[0], s.shape[1]), jnp.int32)
-        acc, _ = jax.lax.scan(step, init, (coef.T, idx.T))
+        # the first tap seeds the carry, so it varies with the input like
+        # the sum does (a constant zero carry fails shard_map's check)
+        acc, _ = jax.lax.scan(lambda acc, t: (acc + tap(*t), None),
+                              tap(coef[:, 0], idx[:, 0]),
+                              (coef.T[1:], idx.T[1:]))
         return acc
     if mode == "bf16":
         hi, lo = c_pack
@@ -169,12 +172,12 @@ def _matmul_work_right(w_i32: jax.Array, c_pack: tuple, mode: str) -> jax.Array:
     if mode == "banded":
         coef, idx = c_pack  # (n_dst_x, taps)
 
-        def step(acc, tap):
-            c_t, i_t = tap
-            return acc + c_t[None, :] * jnp.take(w_i32, i_t, axis=1), None
+        def tap(c_t, i_t):
+            return c_t[None, :] * jnp.take(w_i32, i_t, axis=1)
 
-        init = jnp.zeros((w_i32.shape[0], coef.shape[0]), jnp.int32)
-        acc, _ = jax.lax.scan(step, init, (coef.T, idx.T))
+        acc, _ = jax.lax.scan(lambda acc, t: (acc + tap(*t), None),
+                              tap(coef[:, 0], idx[:, 0]),
+                              (coef.T[1:], idx.T[1:]))
         return acc
     w_lo = w_i32 & 255
     w_hi = w_i32 >> 8

@@ -1,24 +1,26 @@
-"""Multi-chip scaling: device-mesh sharding for batched and spatial resize.
+"""Multi-device scaling: device-mesh sharding for batched and spatial resize.
 
 The reference's only parallelism is OpenMP row striping in shared memory
 (ref: src/IQOLanczosResizerImpl_AVX512.cpp:269-308, src/IQOHWCap.cpp:14-30);
-it has no distributed backend at all.  The TPU-native equivalents:
+it has no distributed backend at all.  The equivalents here:
 
 * **dp (batch/data parallel)** — shard the frame axis of a batch across the
   mesh; resizing is embarrassingly parallel per frame so XLA inserts no
-  collectives at all (ICI stays idle, which is the point).
+  collectives at all.
 * **sp (spatial / row sharding)** — shard source rows across devices for
-  frames too large (or latency-sensitive) for one chip.  The Y pass needs a
-  halo of neighbor rows (the tap window crosses shard boundaries); we
+  frames too large (or latency-sensitive) for one device.  The Y pass needs
+  a halo of neighbor rows (the tap window crosses shard boundaries); we
   exchange fixed-size halos with mesh neighbors via ``jax.lax.ppermute``
-  inside ``shard_map`` — the only communication in the whole framework,
-  and it rides ICI between adjacent devices.
+  inside ``shard_map`` — the only communication in the whole framework.
 
 The two compose over a 2-D mesh (``make_batch_row_sharded_fn``): frames
-over one axis, rows over the other, halos riding ICI along the row axis
-only.  tp/pp/ep have no analog here: there are no weight matrices to
-split, no layer pipeline, no experts — a resize plan's "weights" are
-KB-scale coefficient tables, replicated everywhere.
+over one axis, rows over the other, halos moving along the row axis only.
+Every per-device body is the XLA formulation of ``ops/xla_resize.py``.
+The GPUs of one host are joined all to all (NVLink), so meshes follow the
+algorithm alone and take devices in plain order.  tp/pp/ep have no analog
+here: there are no weight matrices to split, no layer pipeline, no
+experts — a resize plan's "weights" are KB-scale coefficient tables,
+replicated everywhere.
 """
 
 from __future__ import annotations
@@ -30,32 +32,17 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..core.plan import AxisPlan, ResizePlan
-from ..ops import pallas_resize, xla_resize
+from ..core.plan import ResizePlan
+from ..ops import xla_resize
 
 __all__ = ["resize_batch_dp", "make_row_sharded_fn",
            "make_batch_row_sharded_fn", "make_yuv_step_fn"]
 
 
-def _local_backend(plan: ResizePlan, backend: str):
-    """Resolve the per-device compute path, mirroring api.py's dispatch:
-    ``auto`` takes the fused Pallas kernel only on real TPU silicon (its
-    interpret mode is a step-by-step simulator, orders of magnitude slower
-    than the XLA formulation); an explicit ``pallas`` forces it anywhere
-    (interpret off-TPU — tests use this)."""
-    on_tpu = jax.devices()[0].platform == "tpu"
-    want = backend == "pallas" or (backend == "auto" and on_tpu)
-    if want and pallas_resize.supports_plan(plan):
-        return "pallas", not on_tpu
-    return "xla", False
-
-
-def resize_batch_dp(plan: ResizePlan, frames, mesh: Mesh, axis: str = "data",
-                    backend: str = "auto"):
+def resize_batch_dp(plan: ResizePlan, frames, mesh: Mesh, axis: str = "data"):
     """Resize a (B, H, W) u8 batch with B sharded over ``axis``.
 
-    Each device runs the fused Pallas kernel on its local batch shard via
-    shard_map (XLA cannot partition a custom call by itself); no
+    Each device resizes its local batch shard via shard_map; no
     collectives — outputs stay sharded.  Batches not divisible by the mesh
     extent are zero-padded on the frame axis and sliced back (the analog
     of OpenMP's any-count row striping).
@@ -70,20 +57,10 @@ def resize_batch_dp(plan: ResizePlan, frames, mesh: Mesh, axis: str = "data",
         frames = (np.pad(frames, pad_w) if isinstance(frames, np.ndarray)
                   else jnp.pad(frames, pad_w))
 
-    kind, interpret = _local_backend(plan, backend)
-    if kind == "pallas":
-        try:
-            fn, operands = pallas_resize.make_resize_fn(plan,
-                                                        interpret=interpret)
-        except ValueError:     # padless build infeasible (VMEM envelope)
-            fn, operands = xla_resize.make_resize_fn(plan)
-    else:
-        fn, operands = xla_resize.make_resize_fn(plan)
-
+    fn, operands = xla_resize.make_resize_fn(plan)
     in_specs = (*[P()] * len(operands), P(axis, None, None))
-    # check_vma=False: pallas_call's out_shape carries no vma annotation
     sm = shard_map(fn, mesh=mesh, in_specs=in_specs,
-                   out_specs=P(axis, None, None), check_vma=False)
+                   out_specs=P(axis, None, None))
     in_shard = NamedSharding(mesh, P(axis, None, None))
     frames = jax.device_put(frames, in_shard)
     ops = [jax.device_put(o, NamedSharding(mesh, P())) for o in operands]
@@ -128,7 +105,7 @@ def _row_shard_layout(plan: ResizePlan, n: int):
 
 
 def _halo_exchange(src, axis: str, n: int, halo_up: int, halo_dn: int):
-    """Extend a device's local row shard with neighbor halos over ICI.
+    """Extend a device's local row shard with neighbor halos.
 
     Rows live on axis -2, so the same exchange serves (rows, w) shards and
     batched (b, rows, w) shards (dp x sp meshes).  Halos taller than one
@@ -156,104 +133,6 @@ def _halo_exchange(src, axis: str, n: int, halo_up: int, halo_dn: int):
         dn_parts.append(jnp.where(idx < n - h, moved, jnp.zeros_like(moved)))
     parts = up_parts + [src] + dn_parts
     return jnp.concatenate(parts, axis=-2) if len(parts) > 1 else src
-
-
-def _make_row_sharded_pallas(plan: ResizePlan, mesh: Mesh, axis: str,
-                             interpret: bool, data_axis: str | None = None):
-    """Row-sharded resize with the fused Pallas kernel as the per-device
-    body: the halo-extended local band is a normal (band_rows, src_w) ->
-    (hd, dst_w) resize whose Y layout is IDENTICAL on every device (exact
-    shard divisibility makes the local tap starts shift-invariant) while
-    the Y coefficient/deno/border VALUES differ per device — so the kernel
-    is built once (streamed Y blocks) and the per-device values ride in as
-    sharded operands.  With ``data_axis`` the source carries a leading
-    frame axis sharded over it (dp x sp mesh); the kernel rides the local
-    batch as its outermost grid dimension.  Returns None when this layout
-    doesn't apply (caller falls back to the XLA formulation)."""
-    n = mesh.shape[axis]
-    hs, hd, halo_up, halo_dn, _ = _row_shard_layout(plan, n)
-    band_rows = halo_up + hs + halo_dn
-    y = plan.y
-
-    # local tap starts must be the same on every device
-    start0 = y.start[:hd] + halo_up
-    for d in range(1, n):
-        if not np.array_equal(y.start[d * hd:(d + 1) * hd] - d * hs + halo_up,
-                              start0):
-            return None
-
-    def local_axis(d, is_border, deno):
-        sl = slice(d * hd, (d + 1) * hd)
-        return AxisPlan(
-            n_src=band_rows, n_dst=hd, num_coefs=y.num_coefs,
-            num_tables=y.num_tables, coef=y.coef[sl], start=start0,
-            deno=deno, is_border=is_border, bias_bit=y.bias_bit)
-
-    union_border = y.is_border.reshape(n, hd).any(axis=0)
-    y_tmpl = local_axis(0, union_border, y.deno[:hd])
-    plan_loc = dataclasses.replace(plan, y=y_tmpl)
-    # feasibility is the builder's own answer (no separate pre-gate): a
-    # None build falls back to the dense formulation in the caller
-    built = pallas_resize._make_padless_fn(plan_loc, interpret=interpret,
-                                           force_streamed_y=True)
-    if built is None:
-        return None
-    fn, tmpl_ops = built
-    n_cy, n_cx = fn.n_cy, fn.n_cx
-    th, _tw = fn.tiles
-    py = fn.py
-
-    # per-device Y coefficient blocks, byte-split CONSISTENTLY across the
-    # whole device stack (the kernel's baked scales must match)
-    blocks = np.stack([
-        pallas_resize._build_blocks_padless(
-            local_axis(d, y.is_border[d * hd:(d + 1) * hd],
-                       y.deno[d * hd:(d + 1) * hd]), py, False)
-        for d in range(n)])
-    planes, _scale = pallas_resize._byte_planes(blocks)
-    if len(planes) != n_cy:
-        return None  # value-range mismatch with the template build
-    cy_dev = [np.asarray(p) for p in planes]      # (n, n_ty, th, band_h)
-
-    n_rows_pad = py.n_tiles * th
-    # the packed Y epilogue block (deno | border; force_streamed_y
-    # disables s8_y, so no corr_y column) gets per-device values
-    ye_dev = np.ones((n, n_rows_pad, 2), np.int32)
-    ye_dev[:, :, 1] = 0
-    for d in range(n):
-        sl = slice(d * hd, (d + 1) * hd)
-        ye_dev[d, :hd, 0] = np.where(y.deno[sl] == 0, 1, y.deno[sl])
-        ye_dev[d, :hd, 1] = y.is_border[sl].astype(np.int32)
-
-    # tail = (y_epi, x_epi): Y-side packed block replaced with per-device
-    # values; the X-side packed block is replicated verbatim
-    cx_ops = tmpl_ops[n_cy:n_cy + n_cx]
-    x_epi = tmpl_ops[n_cy + n_cx + 1]
-
-    from jax import shard_map
-
-    def local_fn(*args):
-        *ops, src = args
-        cy = [o[0] for o in ops[:n_cy]]           # squeeze device dim
-        cx = ops[n_cy:n_cy + n_cx]
-        ye = ops[n_cy + n_cx][0]
-        xe = ops[n_cy + n_cx + 1]
-
-        band = _halo_exchange(src, axis, n, halo_up, halo_dn)
-        return fn(*cy, *cx, ye, xe, band)
-
-    src_spec = P(data_axis, axis, None) if data_axis else P(axis, None)
-    in_specs = (
-        *[P(axis, None, None, None)] * n_cy,      # per-device Y blocks
-        *[P()] * n_cx,                            # replicated X blocks
-        P(axis, None, None),                      # y_epi (deno | border)
-        P(),                                      # x_epi (replicated)
-        src_spec,                                 # src rows
-    )
-    sm = shard_map(local_fn, mesh=mesh, in_specs=in_specs,
-                   out_specs=src_spec, check_vma=False)
-    operands = (*cy_dev, *cx_ops, ye_dev, x_epi)
-    return jax.jit(sm), operands
 
 
 def _pad_rows_plan(plan: ResizePlan, n: int):
@@ -284,8 +163,7 @@ def _pad_rows_plan(plan: ResizePlan, n: int):
     return dataclasses.replace(plan, y=y_pad), src_pad, dst_pad
 
 
-def make_row_sharded_fn(plan: ResizePlan, mesh: Mesh, axis: str = "row",
-                        backend: str = "auto"):
+def make_row_sharded_fn(plan: ResizePlan, mesh: Mesh, axis: str = "row"):
     """Build a jitted (src_h, src_w) -> (dst_h, dst_w) resize with source
     and output rows sharded over ``axis``; Y-pass halos move via ppermute
     (multi-hop when a tap window spans several shards).
@@ -295,16 +173,12 @@ def make_row_sharded_fn(plan: ResizePlan, mesh: Mesh, axis: str = "row",
     analog of OpenMP striping handling any row count
     (ref: src/IQOLanczosResizerImpl_AVX512.cpp:269-308).
 
-    The per-device body is the fused Pallas kernel whenever the layout
-    allows (the single-chip fast path inherits multi-chip scaling); the
-    dense XLA formulation is the fallback.
-
     Returns (fn, operands): call fn(*operands, src) with src row-sharded.
     """
     n_dev = mesh.shape[axis]
     plan, src_pad, dst_pad = _pad_rows_plan(plan, n_dev)
     if src_pad or dst_pad:
-        inner_fn, operands = make_row_sharded_fn(plan, mesh, axis, backend)
+        inner_fn, operands = make_row_sharded_fn(plan, mesh, axis)
         true_dst = plan.y.n_dst - dst_pad
 
         def fn(*args):
@@ -313,76 +187,41 @@ def make_row_sharded_fn(plan: ResizePlan, mesh: Mesh, axis: str = "row",
             return inner_fn(*ops, src)[:true_dst]
 
         return jax.jit(fn), operands
-
-    kind, interpret = _local_backend(plan, backend)
-    if kind == "pallas":
-        built = _make_row_sharded_pallas(plan, mesh, axis, interpret)
-        if built is not None:
-            return built
     return _make_row_sharded_dense(plan, mesh, axis)
 
 
 def _make_row_sharded_dense(plan: ResizePlan, mesh: Mesh, axis: str,
                             data_axis: str | None = None):
     """Row-sharded resize with the dense XLA formulation as the per-device
-    body (the fallback when the Pallas layout doesn't apply).  With
-    ``data_axis`` the source carries a leading frame axis sharded over it;
-    the per-device math vmaps over the local frames AFTER the halo
-    exchange, so the collective runs once per step regardless of batch."""
+    body.  With ``data_axis`` the source carries a leading frame axis
+    sharded over it; the per-device math vmaps over the local frames AFTER
+    the halo exchange, so the collective runs once per step regardless of
+    batch."""
     from jax import shard_map
 
     n = mesh.shape[axis]
     hs, hd, halo_up, halo_dn, cy_blocks = _row_shard_layout(plan, n)
     # dense modes only: this path packs explicit per-device Cy blocks
     t = xla_resize.build_tables(plan, allow_banded=False)
-    y_mode = t.y_mode
 
     # pack per-device Cy blocks in the same exact-dot format
-    cy_pack = xla_resize._pack_matrix(cy_blocks.reshape(n * hd, -1), y_mode)
+    cy_pack = xla_resize._pack_matrix(cy_blocks.reshape(n * hd, -1), t.y_mode)
     cy_pack = tuple(np.asarray(c).reshape(n, hd, -1) for c in cy_pack)
-
-    # X-pass tables are replicated (KB-scale next to the frames)
-    t_deno_x = jnp.asarray(t.deno_x)
-    t_border_x = jnp.asarray(t.border_x)
-
+    n_cy = len(cy_pack)
     static = (plan.wrap16, plan.y.bias, plan.out_shift,
               bool(plan.y.is_border.any()), bool(plan.x.is_border.any()),
-              y_mode, t.x_mode)
-    n_cy = len(cy_pack)
+              t.y_mode, t.x_mode, n_cy)
 
     def local_fn(*args):
         *ops, deno_y, border_y, src = args
         cy_p = tuple(o[0] for o in ops[:n_cy])       # squeeze device dim
-        cxt_p = tuple(ops[n_cy:])
-        (wrap16, y_bias, out_shift, y_has_border, x_has_border,
-         ymode, xmode) = static
-
-        # ---- halo exchange over ICI --------------------------------------
+        # X-pass tables are replicated (KB-scale next to the frames)
+        tables = (*cy_p, *ops[n_cy:], deno_y[0], t.deno_x, border_y[0],
+                  t.border_x)
         band = _halo_exchange(src, axis, n, halo_up, halo_dn)
 
         def compute(band2d):
-            # ---- local Y pass + border epilogue --------------------------
-            nume = xla_resize._matmul_coef_left(cy_p, ymode, band2d)
-            if wrap16:
-                w = xla_resize._wrap_i16(nume)
-                if y_has_border:
-                    bval = xla_resize._wrap_i16(
-                        xla_resize._trunc_div(w * y_bias, deno_y[0]))
-                    w = jnp.where(border_y[0], bval, w)
-            else:
-                w = nume
-
-            # ---- local X pass (full width on every device) ---------------
-            sums = xla_resize._matmul_work_right(w, cxt_p, xmode)
-            half = 1 << (out_shift - 1)
-            main = (sums + half) >> out_shift
-            if x_has_border:
-                bval = xla_resize._trunc_div(sums + half, t_deno_x * y_bias)
-                v = jnp.where(t_border_x, bval, main)
-            else:
-                v = main
-            v = xla_resize._wrap_i16(v)
-            return jnp.clip(v, 0, 255).astype(jnp.uint8)
+            return xla_resize._resize_2d(static, tables, band2d)
 
         return jax.vmap(compute)(band) if data_axis else compute(band)
 
@@ -405,19 +244,16 @@ def _make_row_sharded_dense(plan: ResizePlan, mesh: Mesh, axis: str,
 
 
 def make_batch_row_sharded_fn(plan: ResizePlan, mesh: Mesh,
-                              data_axis: str = "data", row_axis: str = "row",
-                              backend: str = "auto"):
+                              data_axis: str = "data", row_axis: str = "row"):
     """dp x sp over a 2-D mesh: resize a (B, src_h, src_w) u8 batch with
     frames sharded over ``data_axis`` AND rows over ``row_axis``.
 
     Composes the two parallelism modes: frame parallelism needs no
     communication; the Y-pass halos move via ppermute along ``row_axis``
-    only, so the collective rides ICI between row-neighbors and scales
-    with mesh rows, not total devices.  Any batch size and any height
-    work (zero-padded to the mesh extents and sliced back).  The
-    per-device body is the fused Pallas kernel when the layout allows
-    (local frames ride its outermost grid dimension), else the dense XLA
-    formulation vmapped over local frames.
+    only, so the collective scales with mesh rows, not total devices.  Any
+    batch size and any height work (zero-padded to the mesh extents and
+    sliced back).  The per-device body is the dense XLA formulation
+    vmapped over local frames.
 
     Returns (fn, operands): call fn(*operands, batch) with batch
     (B, src_h, src_w); output is (B, dst_h, dst_w), sharded the same way.
@@ -425,16 +261,8 @@ def make_batch_row_sharded_fn(plan: ResizePlan, mesh: Mesh,
     n_data = mesh.shape[data_axis]
     n_row = mesh.shape[row_axis]
     plan_p, src_pad, dst_pad = _pad_rows_plan(plan, n_row)
-
-    kind, interpret = _local_backend(plan_p, backend)
-    built = None
-    if kind == "pallas":
-        built = _make_row_sharded_pallas(plan_p, mesh, row_axis, interpret,
-                                         data_axis=data_axis)
-    if built is None:
-        built = _make_row_sharded_dense(plan_p, mesh, row_axis,
-                                        data_axis=data_axis)
-    inner, operands = built
+    inner, operands = _make_row_sharded_dense(plan_p, mesh, row_axis,
+                                              data_axis=data_axis)
     true_dst = plan_p.y.n_dst - dst_pad
 
     def fn(*args):
@@ -450,15 +278,13 @@ def make_batch_row_sharded_fn(plan: ResizePlan, mesh: Mesh,
 
 
 def make_yuv_step_fn(mesh: Mesh, src_w: int, src_h: int, dst_w: int, dst_h: int,
-                     degree: int = 3, data_axis: str = "data",
-                     backend: str = "auto"):
-    """The framework's full multi-chip "step": a batched YUV420 frame resize
-    (Y at full size, U/V at half size with px_scale=2,
+                     degree: int = 3, data_axis: str = "data"):
+    """The framework's full multi-device "step": a batched YUV420 frame
+    resize (Y at full size, U/V at half size with px_scale=2,
     ref: sample/resize_yuv420p.cpp:150-163) with the batch sharded over
-    ``data_axis`` via shard_map — each device runs the fused Pallas kernel
-    (where it applies) on its local frame shard.  Frame-parallel resizing
-    needs no collectives; the row-sharded path (make_row_sharded_fn) covers
-    the spatial axis.
+    ``data_axis`` via shard_map — each device resizes its local frame
+    shard.  Frame-parallel resizing needs no collectives; the row-sharded
+    path (make_row_sharded_fn) covers the spatial axis.
 
     Returns (step, operands): step(*operands, y, u, v) -> (Y', U', V').
     """
@@ -476,18 +302,8 @@ def make_yuv_step_fn(mesh: Mesh, src_w: int, src_h: int, dst_w: int, dst_h: int,
     plan_c = build_plan("lanczos", sw // 2, sh // 2, dw // 2, dh // 2,
                         degree=degree, px_scale=2)
 
-    def make(plan):
-        kind, interpret = _local_backend(plan, backend)
-        if kind == "pallas":
-            try:
-                return pallas_resize.make_resize_fn(plan,
-                                                    interpret=interpret)
-            except ValueError:   # s8-envelope plan, padless infeasible
-                pass
-        return xla_resize.make_resize_fn(plan)
-
-    fn_l, ops_l = make(plan_l)
-    fn_c, ops_c = make(plan_c)
+    fn_l, ops_l = xla_resize.make_resize_fn(plan_l)
+    fn_c, ops_c = xla_resize.make_resize_fn(plan_c)
     n_l, n_c = len(ops_l), len(ops_c)
 
     def step(*args):
@@ -503,5 +319,5 @@ def make_yuv_step_fn(mesh: Mesh, src_w: int, src_h: int, dst_w: int, dst_h: int,
         P(data_axis, None, None),
     )
     sm = shard_map(step, mesh=mesh, in_specs=in_specs,
-                   out_specs=P(data_axis, None, None), check_vma=False)
+                   out_specs=P(data_axis, None, None))
     return jax.jit(sm), (*ops_l, *ops_c)

@@ -81,13 +81,13 @@ class YUV420Resizer:
 
     :param method: "linear" | "area" | "lanczosN" (N = degree 1..9)
 
-    Construct-once: three plans + jitted executables; ``resize`` accepts a
-    single frame or a list (batched through one executable per plane).
+    Construct-once: three plans + jitted executables; ``resize`` takes one
+    :class:`YUV420Frame`, ``resize_batch`` takes batched planes (one
+    executable call per plan).
     """
 
     def __init__(self, method: str, src_w: int, src_h: int,
-                 dst_w: int, dst_h: int, backend: str = "auto",
-                 precision: str = "exact"):
+                 dst_w: int, dst_h: int, backend: str = "auto"):
         # The reference sample resizes the Y plane at its TRUE (possibly
         # odd) dimensions and evens only the buffer strides; chroma
         # resizers are constructed from the evened strides (stX/2, not
@@ -104,21 +104,20 @@ class YUV420Resizer:
             degree = int(method[len("lanczos"):] or 3)
             # chroma planes use px_scale=2 (ref: sample/resize_yuv420p.cpp:159)
             self._luma: Resizer = LanczosResizer(
-                degree, src_w, src_h, dst_w, dst_h, backend=backend,
-                precision=precision)
+                degree, src_w, src_h, dst_w, dst_h, backend=backend)
             self._chroma: Resizer = LanczosResizer(
                 degree, sw // 2, sh // 2, dw // 2, dh // 2, px_scale=2,
-                backend=backend, precision=precision)
+                backend=backend)
         elif method == "area":
             self._luma = AreaResizer(src_w, src_h, dst_w, dst_h,
-                                     backend=backend, precision=precision)
+                                     backend=backend)
             self._chroma = AreaResizer(sw // 2, sh // 2, dw // 2, dh // 2,
-                                       backend=backend, precision=precision)
+                                       backend=backend)
         elif method == "linear":
             self._luma = LinearResizer(src_w, src_h, dst_w, dst_h,
-                                       backend=backend, precision=precision)
+                                       backend=backend)
             self._chroma = LinearResizer(sw // 2, sh // 2, dw // 2, dh // 2,
-                                         backend=backend, precision=precision)
+                                         backend=backend)
         else:
             raise ValueError(f"unknown method {method!r} "
                              "(linear | area | lanczos[1-9])")

@@ -9,18 +9,14 @@ def assert_defined_divergence(plan, src, msg=""):
     """For geometries where the reference hits UB (OOB reads, SIGFPE, heap
     overflow) the behavior is ours to define: clamp/replicate semantics
     documented at core/plan.py (_axis_linear) and the golden oracle.  Assert
-    all three implementations (golden NumPy, XLA, Pallas-interpret) agree on
-    those defined outputs instead of skipping the geometry entirely.
+    both implementations (golden NumPy, XLA) agree on those defined outputs
+    instead of skipping the geometry entirely.
     """
     import jax
 
-    from libiqo_tpu.ops import pallas_resize, xla_resize
+    from libiqo_tpu.ops import xla_resize
 
     golden = numpy_ref.resize_u8(plan, src)
     fn, ops = xla_resize.make_resize_fn(plan)
     got = np.asarray(jax.jit(fn)(*ops, src))
     np.testing.assert_array_equal(got, golden, err_msg=f"xla {msg}")
-    if pallas_resize.supports_plan(plan):
-        fn, ops = pallas_resize.make_resize_fn(plan, interpret=True)
-        got = np.asarray(jax.jit(fn)(*ops, src))
-        np.testing.assert_array_equal(got, golden, err_msg=f"pallas {msg}")

@@ -96,9 +96,8 @@ def test_numpy_backend_and_jax_io():
 
 
 def test_warmup_compiles_and_serves():
-    """warmup()/warmup_async() pre-build the executable (VERDICT r2 #9:
-    first-call compiles can take tens of seconds on remote TPU compile
-    services); subsequent resizes reuse it and stay exact."""
+    """warmup()/warmup_async() pre-build the executable (a first-call
+    compile takes seconds); subsequent resizes reuse it and stay exact."""
     r = LanczosResizer(2, 96, 64, 48, 32, backend="xla")
     assert r.warmup() is r
     assert r._jitted is not None

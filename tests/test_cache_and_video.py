@@ -17,7 +17,7 @@ def test_fresh_construction_reuses_executables():
     src = RNG.integers(0, 256, (48, 64), np.uint8)
     r1 = AreaResizer(64, 48, 32, 24, backend="xla")
     out1 = r1.resize(src)           # compiles
-    key = (r1.plan.cache_key(), "xla", "exact")
+    key = r1.plan.cache_key()
     assert key in _COMPILED_CACHE
     t0 = time.perf_counter()
     r2 = AreaResizer(64, 48, 32, 24, backend="xla")   # fresh instance

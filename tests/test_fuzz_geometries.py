@@ -2,7 +2,8 @@
 
 Catches table/index transcription errors on geometry classes the curated
 lists miss.  Seeded, so failures reproduce.  Set LIBIQO_FUZZ_N to raise
-the count locally (default keeps CI fast).
+the count locally (default keeps CI fast).  The device path's own fuzz,
+which needs no reference build, is tests/test_xla_fuzz.py.
 """
 
 import os
@@ -77,21 +78,3 @@ def test_fuzz_linear(i):
     np.testing.assert_array_equal(
         numpy_ref.resize_u8(plan, src), cref.linear(src, dw, dh),
         err_msg=f"linear {sw}x{sh}->{dw}x{dh}")
-
-
-@pytest.mark.parametrize("i", range(min(N, 20)))
-def test_fuzz_xla_path(i):
-    """Device (XLA) path vs oracle on random geometries."""
-    from libiqo_tpu.ops import xla_resize
-    import jax
-
-    sw, sh, dw, dh = _rand_geom()
-    algo = ("lanczos", "area", "linear")[i % 3]
-    kw = {"degree": int(RNG.integers(1, 4))} if algo == "lanczos" else {}
-    plan = build_plan(algo, sw, sh, dw, dh, **kw)
-    src = RNG.integers(0, 256, (sh, sw), np.uint8)
-    fn, ops = xla_resize.make_resize_fn(plan)
-    got = np.asarray(jax.jit(fn)(*ops, src))
-    np.testing.assert_array_equal(
-        got, numpy_ref.resize_u8(plan, src),
-        err_msg=f"{algo} {kw} {sw}x{sh}->{dw}x{dh}")

@@ -29,6 +29,15 @@ def test_flat_invariance(backend):
             assert (out == val).all(), (type(r).__name__, backend, val)
 
 
+def test_flat_image_invariance():
+    """Exact-sum quantization must map flat 128 -> flat 128 (SURVEY §4)."""
+    for algo in ("lanczos", "area", "linear"):
+        plan = build_plan(algo, 320, 200, 123, 77, degree=3)
+        src = np.full((200, 320), 128, dtype=np.uint8)
+        out = numpy_ref.resize_u8(plan, src)
+        assert (out == 128).all(), algo
+
+
 def test_identity_resize_is_identity():
     src = RNG.integers(0, 256, (64, 64), np.uint8)
     for algo, kw in (("lanczos", dict(degree=3)), ("area", {}), ("linear", {})):
@@ -55,10 +64,13 @@ def test_monotone_gradient_stays_monotone_linear():
 def test_device_caps():
     c = caps()
     assert c.num_devices >= 1
-    assert c.platform in ("cpu", "tpu", "gpu")
+    assert c.platform in ("cpu", "gpu")
     assert isinstance(describe(), str) and c.device_kind in describe()
 
 
 def test_resolved_backend_consistency():
     r = AreaResizer(64, 48, 32, 24)
-    assert r.resolved_backend() in ("pallas", "xla")
+    assert r.resolved_backend() == "xla"
+    assert AreaResizer(64, 48, 32, 24, backend="numpy").resolved_backend() == "numpy"
+    with pytest.raises(ValueError):
+        AreaResizer(64, 48, 32, 24, backend="pallas")

@@ -70,35 +70,27 @@ def test_yuv_step_dp():
         np.testing.assert_array_equal(np.asarray(ov)[i], numpy_ref.resize_u8(pc, v[i]))
 
 
-def test_row_sharded_pallas_path_taken():
-    """The fused Pallas kernel must be the per-device body for normal
-    geometries (VERDICT r1: multi-chip previously reached only the dense
-    XLA formulation); backend='xla' still works and agrees."""
-    mesh = _mesh((8,), ("row",))
-    plan = build_plan("lanczos", 320, 240, 160, 120, degree=3)
-    built = sharding._make_row_sharded_pallas(plan, mesh, "row", interpret=True)
-    assert built is not None, "pallas row-sharded layout rejected this geometry"
-    src = RNG.integers(0, 256, (240, 320), np.uint8)
-    fn, operands = built
-    out = np.asarray(fn(*operands, src))
-    gold = numpy_ref.resize_u8(plan, src)
-    np.testing.assert_array_equal(out, gold)
-    fn_x, ops_x = sharding.make_row_sharded_fn(plan, mesh, backend="xla")
-    np.testing.assert_array_equal(np.asarray(fn_x(*ops_x, src)), gold)
+def test_yuv_step_dp_banded_form(monkeypatch):
+    """The banded form (the 4K X axis on the GPU) inside shard_map: its
+    scan carry must vary over the mesh axis like the frames do."""
+    from libiqo_tpu.ops import xla_resize
 
-
-def test_batch_dp_pallas_vs_xla():
-    mesh = _mesh((8,), ("data",))
-    plan = build_plan("area", 256, 192, 64, 48)
-    frames = RNG.integers(0, 256, (8, 192, 256), np.uint8)
-    out_p = np.asarray(sharding.resize_batch_dp(plan, frames, mesh,
-                                                backend="pallas"))
-    out_x = np.asarray(sharding.resize_batch_dp(plan, frames, mesh,
-                                                backend="xla"))
-    for i in range(8):
-        gold = numpy_ref.resize_u8(plan, frames[i])
-        np.testing.assert_array_equal(out_p[i], gold)
-        np.testing.assert_array_equal(out_x[i], gold)
+    monkeypatch.setattr(xla_resize, "_DENSE_LIMIT", 0)
+    mesh = _mesh((4,), ("data",))
+    step, operands = sharding.make_yuv_step_fn(mesh, 64, 48, 32, 24, degree=3)
+    y = RNG.integers(0, 256, (4, 48, 64), np.uint8)
+    u = RNG.integers(0, 256, (4, 24, 32), np.uint8)
+    v = RNG.integers(0, 256, (4, 24, 32), np.uint8)
+    oy, ou, ov = step(*operands, y, u, v)
+    pl = build_plan("lanczos", 64, 48, 32, 24, degree=3)
+    pc = build_plan("lanczos", 32, 24, 16, 12, degree=3, px_scale=2)
+    for i in range(4):
+        np.testing.assert_array_equal(np.asarray(oy)[i], numpy_ref.resize_u8(pl, y[i]))
+        np.testing.assert_array_equal(np.asarray(ou)[i], numpy_ref.resize_u8(pc, u[i]))
+        np.testing.assert_array_equal(np.asarray(ov)[i], numpy_ref.resize_u8(pc, v[i]))
+    out = sharding.resize_batch_dp(pl, y, mesh)
+    for i in range(4):
+        np.testing.assert_array_equal(np.asarray(out)[i], numpy_ref.resize_u8(pl, y[i]))
 
 
 def test_yuv_step_odd_dims():
@@ -186,16 +178,14 @@ def test_padded_resize_batch_preserves_jax_arrays():
     assert (np.asarray(oy)[:, 23:, :] == 0).all()
     assert (np.asarray(oy)[:, :, 31:] == 0).all()
 
-@pytest.mark.parametrize("backend", ["auto", "pallas"])
-def test_batch_row_sharded_2d_mesh(backend):
+def test_batch_row_sharded_2d_mesh():
     """dp x sp composition on a 2x4 mesh: frames over 'data', rows over
     'row'; byte-exact vs the oracle for every frame.  Odd batch (3 pads
     to 4) and non-divisible height (96 rows over 4 shards divides; 50
     dst rows pad) exercise both pad-and-slice paths."""
     mesh = _mesh((2, 4), ("data", "row"))
     plan = build_plan("lanczos", 128, 96, 96, 50, degree=3)
-    fn, operands = sharding.make_batch_row_sharded_fn(
-        plan, mesh, backend=backend)
+    fn, operands = sharding.make_batch_row_sharded_fn(plan, mesh)
     frames = RNG.integers(0, 256, (3, 96, 128), np.uint8)
     out = np.asarray(fn(*operands, frames))
     assert out.shape == (3, 50, 96)
@@ -205,11 +195,11 @@ def test_batch_row_sharded_2d_mesh(backend):
 
 
 def test_batch_row_sharded_dense_fallback():
-    """The dense XLA body (vmapped over local frames) on the 2-D mesh."""
+    """The dense XLA body (vmapped over local frames) on the 2-D mesh,
+    with an area plan."""
     mesh = _mesh((2, 4), ("data", "row"))
     plan = build_plan("area", 160, 120, 40, 32)
-    fn, operands = sharding.make_batch_row_sharded_fn(
-        plan, mesh, backend="xla")
+    fn, operands = sharding.make_batch_row_sharded_fn(plan, mesh)
     frames = RNG.integers(0, 256, (4, 120, 160), np.uint8)
     out = np.asarray(fn(*operands, frames))
     for i in range(4):
